@@ -161,7 +161,7 @@ class ImputeConfig:
     record_read_label_usage: bool = False
     record_interim_dosages: bool = False
     plot_per_sample_likelihoods: bool = False
-    # TPU-specific knobs (no reference equivalent)
+    # device knobs (no reference equivalent)
     sample_batch: int = 8             # samples imputed per device batch
     precision: str = "float32"
     mesh_data: int = 1                # data-parallel axis size
@@ -171,6 +171,8 @@ class ImputeConfig:
     distributed_nproc: int = 1        # number of cooperating processes
     distributed_rank: int = 0         # this process's id (0-based)
     distributed_coordinator: str = "" # coordinator host:port (rank 0's)
+    distributed_local_device: int = -1  # this process's GPU on its host
+                                        # (-1 = JAX's cluster detection)
 
     def resolved_n_burn_in_seek_its(self) -> int:
         if self.n_burn_in_seek_its is None:

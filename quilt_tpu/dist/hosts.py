@@ -1,18 +1,18 @@
-"""Multi-host (multi-process) execution over DCN.
+"""Multi-process execution: one process per GPU, on one host or several.
 
 Reference analogue: the fork-per-sample model plus job-array sharding
 across nodes (QUILT/R/quilt.R:691-694, example/ligation.Md:24-41). The
-TPU-native design (SURVEY section 2.7): `jax.distributed` connects the
-processes; samples are DATA-parallel across hosts — each host ingests its
-own BAM subset host-side and imputes its contiguous sample shard on its
-local devices — then the VCF aggregates (INFO/EAF/HWE accumulators) reduce
-across hosts and the per-sample VCF columns gather to every host; process 0
-writes the single merged VCF.
+design (SURVEY section 2.7): `jax.distributed` connects the processes;
+samples are DATA-parallel across processes — each ingests its own BAM
+subset host-side and imputes its contiguous sample shard on its own card
+— then the VCF aggregates (INFO/EAF/HWE accumulators) reduce across
+processes and the per-sample VCF columns gather to every process;
+process 0 writes the single merged VCF.
 
-Column gather rides `multihost_utils.process_allgather` (DCN collectives;
-gloo on CPU, ICI/DCN on TPU pods). For cohort sizes where gathered columns
-would not fit one host, shard the REGION instead (dist/ligate.py) — the
-reference makes the same trade with its per-region job array.
+Column gather rides `multihost_utils.process_allgather` (NCCL between
+GPUs, gloo on CPU). For cohort sizes where gathered columns would not fit
+one host, shard the REGION instead (dist/ligate.py) — the reference makes
+the same trade with its per-region job array.
 """
 from __future__ import annotations
 
@@ -23,12 +23,21 @@ import numpy as np
 
 def init_multihost(
     coordinator: str, num_processes: int, process_id: int,
+    local_device: int = -1,
 ) -> None:
-    """jax.distributed entry point; call before any other jax use."""
+    """jax.distributed entry point; call before any other jax use.
+
+    `local_device` >= 0 pins this process to that card of its host. With
+    -1 JAX chooses: a cluster it detects (SLURM, Open MPI, ...) assigns
+    each process its local card, and otherwise the process opens every
+    card it can see. Several processes on one host without a cluster
+    manager must each be given their card (here, or with
+    CUDA_VISIBLE_DEVICES), or each reserves memory on every card."""
     import jax
 
     jax.distributed.initialize(
-        coordinator, num_processes=num_processes, process_id=process_id
+        coordinator, num_processes=num_processes, process_id=process_id,
+        local_device_ids=[local_device] if local_device >= 0 else None,
     )
 
 

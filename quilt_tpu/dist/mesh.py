@@ -1,22 +1,23 @@
-"""Multi-chip execution: device mesh and the panel-sharded full-panel FB.
+"""Multi-device execution: device mesh and the panel-sharded full-panel FB.
 
 The reference's only concurrency is fork-per-sample (QUILT/R/quilt.R:692);
-the TPU-native equivalents are:
+the device equivalents are two mesh axes over GPUs that NVLink joins all
+to all, so the mesh shape follows the algorithm alone:
 
-- `data` mesh axis: independent samples/chains batch-parallel (embarrassingly
-  parallel, DCN-friendly across hosts);
+- `data` mesh axis: independent samples/chains batch-parallel
+  (embarrassingly parallel, no collectives);
 - `panel` mesh axis: the K reference-haplotype axis of the full-panel FB
-  sharded over ICI. Each grid step needs one global sum over K (the
-  Li & Stephens jump mass) — a [B]-vector psum per scan step riding ICI —
-  plus psums for the per-grid normalizer, the dosage partials (through the
-  distinct-hap table), and the escape corrections; top-K candidates merge
-  via all_gather of per-shard top-K followed by a host value-sort.
+  sharded across cards. The Li & Stephens recursion needs global sums
+  over K (jump mass, normalizers); the segment-fused body
+  (`_fb_core_segmented`) batches them into one psum per SEG_LEN grids,
+  which XLA hands to NCCL. Dosage partials (through the distinct-hap
+  table) and escape corrections psum once; top-K candidates merge via
+  all_gather of per-shard top-K followed by a host value-sort.
 
-The sharded kernel is EXACT: it runs the same `_fb_core_impl` body as the
-single-device kernel with every K-reduction lifted to a psum/pmax
-(kernels/fb_full.py), including the escape-COO correction and thinned-grid
-top-K gating. This mirrors the north-star decomposition in BASELINE.json
-and SURVEY.md section 2.7.
+The sharded kernel is EXACT up to summation order: every K-reduction of
+the single-device body is lifted to a psum/pmax (kernels/fb_full.py),
+including the escape-COO correction and thinned-grid top-K gating
+(SURVEY.md section 2.7).
 """
 from __future__ import annotations
 
@@ -222,7 +223,7 @@ def shard_gibbs_batch(mesh: Mesh, batch_axis0: dict, uniforms=None,
                       block_u=None, resample_u=None):
     """Place Gibbs-sweep arrays with the chain/batch axis sharded over the
     mesh. The sweep is embarrassingly parallel over chains (shared-nothing,
-    the TPU analogue of the reference's fork-per-sample, quilt.R:692), so
+    the device analogue of the reference's fork-per-sample, quilt.R:692), so
     XLA partitions it without collectives once the inputs are sharded.
 
     batch_axis0: name -> array with the batch on axis 0.

@@ -123,7 +123,7 @@ def quilt_impute(
     r2s: List[float] = []
     n_imputed = 0
 
-    # multi-host data parallelism over DCN (dist/hosts.py): each process
+    # multi-process data parallelism (dist/hosts.py): each process
     # imputes its contiguous sample shard; aggregates reduce and columns
     # gather before the process-0 VCF write
     import jax as _jax
@@ -158,34 +158,25 @@ def quilt_impute(
     )
     precomputed: Dict[int, SampleResult] = {}
     if use_batched:
-        from .batch import impute_samples_batched
-        # clamp the device batch so the fused Gibbs sweep keeps its VMEM
-        # envelope (chains = samples x nGibbsSamples rows; oversize groups
-        # would silently fall back to the much slower XLA sweep)
+        from .batch import gibbs_chain_cap, impute_samples_batched
+        # clamp the device batch (rows = samples x nGibbsSamples) so one
+        # Gibbs sweep call fits its share of this device's memory
         from ..kernels.common import pad_to_multiple as _ptm
-        from ..kernels.gibbs_pallas import max_hbm_chains
+        from ..utils.device import device_bytes_limit
         nl_eff = 3 if method == "nipt" else 2
-        # W from the region's ACTUAL max reads-per-grid; the fused sweep's
-        # VMEM row ceiling no longer limits the batch (oversize batches run
-        # as chunked Pallas sub-batches), so the clamp is HBM-footprint only
-        W_max = 1
-        for r in samples:
-            if r is not None and r.nReads:
-                cnt = np.bincount(
-                    np.clip(r.wif0, 0, prep.nGrids - 1),
-                    minlength=prep.nGrids,
-                )
-                W_max = max(W_max, int(cnt.max()))
-        cap_chains = max_hbm_chains(
-            _ptm(max(cfg.Ksubset, 1), 128), nl_eff, W=W_max,
-            G=prep.nGrids,
+        R_max = max(
+            [r.nReads for r in samples if r is not None] + [1]
+        )
+        cap_chains = gibbs_chain_cap(
+            _ptm(max(cfg.Ksubset, 1), 128), nl_eff, G=prep.nGrids,
+            R=_ptm(R_max, 64), bytes_limit=device_bytes_limit(),
         )
         group_cap = max(1, cap_chains // max(cfg.nGibbsSamples, 1))
         sample_batch = min(cfg.sample_batch, group_cap)
         if sample_batch < cfg.sample_batch:
             print_message(
                 f"Clamping sample_batch {cfg.sample_batch} -> "
-                f"{sample_batch} (Gibbs batch HBM envelope at "
+                f"{sample_batch} (Gibbs batch device-memory share at "
                 f"Ksubset={cfg.Ksubset})"
             )
         # NIPT batches share one ff (the kernel's class tables are
@@ -340,7 +331,7 @@ def quilt_impute(
             print_message(msg)
 
     if multihost:
-        # DCN reduction of the INFO/EAF/HWE accumulators + column gather,
+        # cross-process reduction of the INFO/EAF/HWE accumulators + column gather,
         # so the merged VCF is bit-identical to a single-process run
         from ..dist.hosts import allgather_columns, reduce_sum_across_hosts
         red = reduce_sum_across_hosts({

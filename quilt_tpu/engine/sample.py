@@ -7,7 +7,7 @@ plus a final phasing pass, each running n_seek_its seek iterations of
 accumulation past seek burn-in, cross-chain read-label consensus, and the
 phasing recast.
 
-TPU-first restructuring: the reference runs its chains sequentially in one
+Restructured for a device: the reference runs its chains sequentially in one
 process; here all chains advance together as the batch axis of the device
 kernels (Gibbs batch = chains, FB batch = chains x latent haps), with only
 the cheap haplotype-selection heuristics and consensus on the host.
@@ -604,8 +604,8 @@ def impute_one_sample(
     # phasing pass (reference: i_gibbs_sample == nGibbsSamples+1)
     # ------------------------------------------------------------------
     # phasing chain replicated x C to reuse the main chains' compiled
-    # kernel shapes (a second remote compile costs far more than the
-    # redundant rows; the sweep cost is flat in batch size)
+    # kernel shapes (a second compile costs more than the redundant rows;
+    # the sweep cost is nearly flat in batch size)
     H_p = np.zeros((C, R), dtype=np.int32)
     H_p[:, : reads.nReads] = cons[None, :]
     wh_p = np.repeat(which_haps[C - 1:C], C, axis=0).copy()

@@ -65,12 +65,12 @@ def validate_impute_config(cfg: ImputeConfig) -> None:
             "quilt_tpu"
         )
     if not cfg.use_sample_is_diploid and cfg.method == "diploid":
-        # the TPU diploid Gibbs kernel is inherently specialized for the
+        # the diploid Gibbs kernel is inherently specialized for the
         # two-haplotype case (reference toggles this at functions.R:2539);
         # the flag cannot disable that specialization
         from ..utils import print_message
         print_message(
-            "Note: use_sample_is_diploid=FALSE has no effect; the TPU "
+            "Note: use_sample_is_diploid=FALSE has no effect; the "
             "diploid kernel always uses the specialized diploid path "
             "(documented deviation, see PARITY.md)"
         )

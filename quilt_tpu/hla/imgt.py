@@ -18,7 +18,7 @@ Post-processing mirrors the reference exactly:
 `db_from_imgt` converts the alignment into an HLAAlleleDB for the typing
 pipeline; alignment gaps ('.') are filled from the reference allele and
 unknowns ('*') become code 4 (documented deviation: the reference keeps
-per-allele variable-length sequences plus lookup tables; the TPU typing
+per-allele variable-length sequences plus lookup tables; the device typing
 kernel wants a fixed [A, L] matrix).
 """
 from __future__ import annotations

@@ -69,7 +69,7 @@ def _rolling_kmer_codes(seq: np.ndarray, k: int):
 def build_seed_index(db, k: int) -> Dict[int, int]:
     """k-mer -> gene-alignment offset of its first occurrence across all
     alleles. Because db.seqs is the IPD-IMGT multiple alignment, one offset
-    places a read against every allele simultaneously — the TPU-side
+    places a read against every allele simultaneously — the device-side
     restructuring of the reference's per-allele lookup/revlookup seed
     tables (hla_functions.R getalleles; built at hla_prepare_functions.R
     make_and_save_hla_full_alleles_filled_in)."""
@@ -253,8 +253,8 @@ def type_hla_sample(
                 # per-chunk pairs stay f32, but the running sum is
                 # Kahan-compensated: with thousands of reads the summed
                 # log-likelihoods reach 1e4-1e5 where plain f32 error
-                # (~1e-2) can flip near-tie HLA pair posteriors (f64 is
-                # unavailable on TPU without global x64 mode)
+                # (~1e-2) can flip near-tie HLA pair posteriors (f64 needs
+                # JAX's global x64 mode, which the package does not set)
                 acc, comp = acc
                 chunk = (pair * v[:, None, None]).sum(axis=0)
                 y = chunk - comp

@@ -10,9 +10,14 @@ from __future__ import annotations
 import struct
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from ..out.bgzf import BgzfWriter
 
 SEQ_ENCODE = {c: i for i, c in enumerate("=ACMGRSVTWYHKDBN")}
+_NIBBLE = np.full(256, 15, dtype=np.uint8)         # byte -> 4-bit base code
+for _c, _i in SEQ_ENCODE.items():
+    _NIBBLE[ord(_c)] = _i
 
 
 class BamWriter:
@@ -71,14 +76,11 @@ class BamWriter:
                 struct.pack("<I", (ln << 4) | OPS.index(op))
                 for op, ln in cigar_ops
             )
-        seq_b = bytearray((l_seq + 1) // 2)
-        for i, c in enumerate(seq):
-            nib = SEQ_ENCODE.get(c, 15)
-            if i % 2 == 0:
-                seq_b[i >> 1] |= nib << 4
-            else:
-                seq_b[i >> 1] |= nib
-        qual_b = bytes(min(int(q), 93) for q in quals)
+        nib = _NIBBLE[np.frombuffer(seq.encode("ascii"), dtype=np.uint8)]
+        if l_seq % 2:
+            nib = np.append(nib, np.uint8(0))
+        seq_b = (nib[0::2] << 4) | nib[1::2]
+        qual_b = np.minimum(np.asarray(quals), 93).astype(np.uint8).tobytes()
         tags = b""
         if bx is not None:
             tags += b"BXZ" + bx.encode() + b"\x00"
@@ -132,6 +134,9 @@ def write_panel_vcf(
         idx = TabixIndexer()
     K, nSNPs = haps.shape
     assert K % 2 == 0
+    haps = np.asarray(haps)
+    if haps.min() < 0 or haps.max() > 9:
+        raise ValueError("panel alleles must be single digits")
     n_samp = K // 2
     names = (list(sample_names) if sample_names is not None
              else [f"{sample_prefix}{i}" for i in range(n_samp)])
@@ -143,10 +148,14 @@ def write_panel_vcf(
             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
             + "\t".join(names) + "\n"
         )
+        # one "a|b\t" cell per sample, built for all SNPs at once
+        cells = np.empty((nSNPs, n_samp, 4), dtype=np.uint8)
+        cells[:, :, 0] = haps[0::2].T + ord("0")
+        cells[:, :, 1] = ord("|")
+        cells[:, :, 2] = haps[1::2].T + ord("0")
+        cells[:, :, 3] = ord("\t")
         for s in range(nSNPs):
-            gts = "\t".join(
-                f"{haps[2 * i, s]}|{haps[2 * i + 1, s]}" for i in range(n_samp)
-            )
+            gts = cells[s].tobytes()[:-1].decode("ascii")
             vbeg = w.tell_virtual()
             w.write(
                 f"{chrom}\t{pos[s]}\t.\t{ref_allele[s]}\t{alt_allele[s]}"

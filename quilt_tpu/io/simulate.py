@@ -57,6 +57,33 @@ def simulate_panel(
     return haps, pos.astype(np.int64)
 
 
+def fast_packed_panel(rng, K, nGrids, n_founders=32, switch=0.02,
+                      mutation_per_bit=0.008):
+    """Founder-mosaic panel generated directly in 32-SNP packed form.
+
+    Same statistical structure simulate_panel produces (founder mosaics +
+    sparse mutations -> a few hundred distinct haps per grid) but built
+    from [K, nGrids] arrays only: the generic simulator's per-SNP
+    [K, nSNPs] temporaries take ~10 GB at benchmark scale. Returns packed
+    words rhb_t uint32 [K, nGrids] (bit b of word g = SNP 32g+b)."""
+    founders = rng.integers(0, 1 << 32, size=(n_founders, nGrids),
+                            dtype=np.uint32)
+    jumps = rng.integers(0, 1 << 16, size=(K, nGrids), dtype=np.uint16) \
+        < int(switch * (1 << 16))
+    jumps[:, 0] = True
+    choice = rng.integers(0, n_founders, size=(K, nGrids), dtype=np.int8)
+    idx = np.where(jumps, np.arange(nGrids, dtype=np.int32)[None, :], 0)
+    np.maximum.accumulate(idx, axis=1, out=idx)
+    founder_of = choice[np.arange(K)[:, None], idx]
+    rhb_t = founders[founder_of, np.arange(nGrids)[None, :]]
+    n_mut = int(K * nGrids * 32 * mutation_per_bit)
+    mk = rng.integers(0, K, n_mut)
+    mg = rng.integers(0, nGrids, n_mut)
+    mb = rng.integers(0, 32, n_mut).astype(np.uint32)
+    np.bitwise_xor.at(rhb_t, (mk, mg), np.uint32(1) << mb)
+    return rhb_t
+
+
 def simulate_truth_mosaic(
     rng: np.random.Generator,
     panel_haps: np.ndarray,

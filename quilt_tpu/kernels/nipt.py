@@ -17,7 +17,7 @@ Functional equivalents of the reference's H_class / relabelling machinery:
   classifies each read from the sampler state at the moment the read is
   resampled mid-sweep; here (kernel AND oracle, so the two-oracle tests
   stay exact) classification uses the end-of-iteration alpha/beta state,
-  fully batched -- same stationary distribution, TPU-parallel;
+  fully batched -- same stationary distribution, parallel over reads;
 - 6-permutation choice probabilities for block relabelling
   (Rcpp_consider_block_relabelling, gibbs-nipt-block.cpp:590-954, with the
   default block_approach=6 H_class read term) and for entire relabelling

@@ -1,6 +1,6 @@
 // quilt_io: native host data plane for quilt_tpu.
 //
-// TPU-native equivalent of the reference's native IO layer (STITCH's
+// Equivalent of the reference's native IO layer (STITCH's
 // C++/htslib loadBamAndConvert and vcfpp-based Rcpp_get_hap_info_from_vcf;
 // see SURVEY.md section 2.9): BGZF decompression, reference-panel VCF
 // ingestion straight to bit-packed haplotype words, and BAM read extraction

@@ -10,7 +10,7 @@ gibbs-nipt.cpp:3009):
   the SAME draws and state as the sequential per-boundary loops
 - nipt_block_within accepts per-row [NB, B] boundaries and reproduces the
   shared [NB] behavior when rows agree
-- the padded-layout live jump rate matches the oracle formula
+- the live jump rate matches the oracle formula
 """
 import numpy as np
 import pytest
@@ -19,15 +19,13 @@ import jax
 import jax.numpy as jnp
 
 from quilt_tpu.kernels.gibbs import (
+    _block_moves_nipt,
+    _block_moves_nipt_otf,
+    _block_moves_pair,
+    _block_moves_pair_otf,
     _boundaries_from_rate,
+    _live_jump_rate,
     nipt_block_within,
-)
-from quilt_tpu.kernels.gibbs_pallas import (
-    _block_moves_nipt_padded,
-    _block_moves_padded,
-    _live_jump_rate_padded,
-    _suffix_nipt_composed_padded,
-    _suffix_pair_composed_padded,
 )
 from quilt_tpu.kernels import nipt as nipt_tables
 from quilt_tpu.oracle.block_gibbs import (
@@ -70,37 +68,36 @@ def test_boundaries_flat_rate_gives_none(rng):
     assert (dev == 0).all()
 
 
-def _random_padded_state(rng, G, W, B, K, nl):
-    BN = nl * B
+def _random_state(rng, G, R, B, K, nl):
+    """Random sweep state in the sampler's layouts: planes [G, B, nl, K],
+    read labels/classes and grid-sorted read grids [R, B], mask [B, R]."""
     lemg = jnp.asarray(
-        np.log(rng.random((G, BN, K)).astype(np.float32) + 0.1)
+        np.log(rng.random((G, B, nl, K)).astype(np.float32) + 0.1)
     )
-    beta = jnp.asarray(rng.random((G, BN, K)).astype(np.float32) + 0.05)
-    alphas = jnp.asarray(rng.random((G, BN, K)).astype(np.float32) + 0.05)
-    H_pad = jnp.asarray(rng.integers(0, nl, (G, W, B)).astype(np.int32))
-    Hc_pad = jnp.asarray(rng.integers(0, 8, (G, W, B)).astype(np.int32))
-    valid = jnp.asarray(rng.random((G, W, B)) < 0.7)
-    return lemg, beta, alphas, H_pad, Hc_pad, valid
+    beta = jnp.asarray(rng.random((G, B, nl, K)).astype(np.float32) + 0.05)
+    alphas = jnp.asarray(rng.random((G, B, nl, K)).astype(np.float32) + 0.05)
+    H = jnp.asarray(rng.integers(0, nl, (R, B)).astype(np.int32))
+    Hc = jnp.asarray(rng.integers(0, 8, (R, B)).astype(np.int32))
+    wif0_r = jnp.asarray(
+        np.sort(rng.integers(0, G, (B, R)), axis=1).T.astype(np.int32)
+    )
+    read_mask = jnp.asarray(rng.random((B, R)) < 0.7)
+    return lemg, beta, alphas, H, Hc, wif0_r, read_mask
 
 
 def test_pair_composed_equals_sequential(rng):
-    G, W, B, K, nl = 24, 3, 4, 16, 2
-    lemg, beta, alphas, H_pad, _, valid = _random_padded_state(
-        rng, G, W, B, K, nl
+    G, R, B, K, nl = 24, 40, 4, 16, 2
+    lemg, beta, alphas, H, _, wif0_r, _ = _random_state(
+        rng, G, R, B, K, nl
     )
     NB = 5
     bnd = np.array([0, 3, 7, 15, 21], dtype=np.int32)
-    block_u = jnp.asarray(rng.random((NB, 3, B)).astype(np.float32))
-    K_real = 13
-    log_prior = jnp.log(jnp.asarray([0.5, 0.5], jnp.float32))
-    seq = _block_moves_padded(
-        lemg, beta, alphas, H_pad, valid, jnp.asarray(bnd), block_u,
-        nl, B, K_real, log_prior,
+    u = jnp.asarray(rng.random((NB, B)).astype(np.float32))
+    seq = _block_moves_pair(
+        lemg, beta, alphas, H, jnp.asarray(bnd), u, wif0_r
     )
     bnd_rb = jnp.broadcast_to(jnp.asarray(bnd)[:, None], (NB, B))
-    comp = _suffix_pair_composed_padded(
-        lemg, beta, alphas, H_pad, bnd_rb, block_u[:, 0], nl, B, K_real,
-    )
+    comp = _block_moves_pair_otf(lemg, beta, alphas, H, bnd_rb, u, wif0_r)
     for s, c, name in zip(seq, comp, ("lemg", "beta", "alphas", "H")):
         np.testing.assert_allclose(
             np.asarray(s), np.asarray(c), rtol=1e-5, atol=1e-6,
@@ -109,25 +106,25 @@ def test_pair_composed_equals_sequential(rng):
 
 
 def test_nipt_composed_equals_sequential(rng):
-    G, W, B, K, nl = 24, 3, 4, 16, 3
-    lemg, beta, alphas, H_pad, Hc_pad, valid = _random_padded_state(
-        rng, G, W, B, K, nl
+    G, R, B, K, nl = 24, 40, 4, 16, 3
+    lemg, beta, alphas, H, Hc, wif0_r, read_mask = _random_state(
+        rng, G, R, B, K, nl
     )
     NB = 5
     bnd = np.array([0, 3, 7, 15, 21], dtype=np.int32)
-    block_u = jnp.asarray(rng.random((NB, 3, B)).astype(np.float32))
+    u = jnp.asarray(rng.random((NB, B)).astype(np.float32))
     K_real = 13
     ff = 0.2
     clp = jnp.asarray(nipt_tables.class_log_p(ff).astype(np.float32))
     perm_mask = jnp.ones(6, jnp.float32)
-    seq = _block_moves_nipt_padded(
-        lemg, beta, alphas, H_pad, Hc_pad, valid, jnp.asarray(bnd),
-        block_u, B, K_real, clp, perm_mask,
+    seq = _block_moves_nipt(
+        lemg, beta, alphas, H, Hc, jnp.asarray(bnd), u, wif0_r, read_mask,
+        K_real, clp, perm_mask,
     )
     bnd_rb = jnp.broadcast_to(jnp.asarray(bnd)[:, None], (NB, B))
-    comp = _suffix_nipt_composed_padded(
-        lemg, beta, alphas, H_pad, Hc_pad, valid, bnd_rb, block_u[:, 0],
-        clp, perm_mask, B, K_real,
+    comp = _block_moves_nipt_otf(
+        lemg, beta, alphas, H, Hc, bnd_rb, u, wif0_r, read_mask, K_real,
+        clp, perm_mask,
     )
     for s, c, name in zip(
         seq, comp, ("lemg", "beta", "alphas", "H", "Hc")
@@ -184,26 +181,25 @@ def test_within_per_row_matches_shared(rng):
 
 def test_live_jump_rate_padded_vs_oracle(rng):
     G, B, K, nl = 12, 2, 8, 2
-    BN = nl * B
-    lemg = np.log(rng.random((G, BN, K)).astype(np.float32) + 0.1)
-    beta = rng.random((G, BN, K)).astype(np.float32) + 0.05
-    alphas = rng.random((G, BN, K)).astype(np.float32) + 0.05
+    lemg = np.log(rng.random((G, B, nl, K)).astype(np.float32) + 0.1)
+    beta = rng.random((G, B, nl, K)).astype(np.float32) + 0.05
+    alphas = rng.random((G, B, nl, K)).astype(np.float32) + 0.05
     trans_t = np.stack(
         [np.full(G, 0.96), np.full(G, 0.04)]
     ).astype(np.float32)
     trans_t[:, 0] = (1.0, 0.0)
-    dev = np.asarray(_live_jump_rate_padded(
+    prior = jnp.asarray([0.5, 0.5], jnp.float32)
+    dev = np.asarray(_live_jump_rate(
         jnp.asarray(alphas), jnp.asarray(beta), jnp.asarray(lemg),
-        jnp.asarray(trans_t), nl, B, K, True,
+        jnp.asarray(trans_t.T), prior, K,
     ))                                                  # [G-1, B]
     for b in range(B):
         # oracle layout [nl, K, G]; relative emissions match the kernel's
         # per-(grid,row) max-shift up to scale, which the rate is
         # invariant to
-        a_o = np.stack([alphas[:, h * B + b, :].T for h in range(nl)])
-        b_o = np.stack([beta[:, h * B + b, :].T for h in range(nl)])
-        e_o = np.stack([np.exp(lemg[:, h * B + b, :]).T
-                        for h in range(nl)])
+        a_o = np.stack([alphas[:, b, h, :].T for h in range(nl)])
+        b_o = np.stack([beta[:, b, h, :].T for h in range(nl)])
+        e_o = np.stack([np.exp(lemg[:, b, h, :]).T for h in range(nl)])
         want = live_jump_rate(
             a_o, b_o, e_o, trans_t[:, 1:], include3=True
         )

@@ -19,7 +19,7 @@ def test_example_workflow(tmp_path):
     for f in ("QUILT_usage.md", "run_example.sh", "make_example_data.py"):
         shutil.copy(os.path.join(REPO, "example", f), work / "example" / f)
     env = dict(os.environ)
-    env["QUILT_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run(
         ["bash", str(work / "example" / "run_example.sh")],
